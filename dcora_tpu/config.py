@@ -4,7 +4,7 @@ The reference's configuration surface is three parameter structs with C++
 defaults and ``operator<<`` reproducibility dumps (AgentParameters
 Agent.h:113-185, ROptParameters DCORA_types.h:152-200,
 RobustCostParameters DCORA_robust.h:25-84) plus constants hard-coded in
-each example.  This module is the TPU build's single equivalent: one
+each example.  This module is this build's single equivalent: one
 dataclass aggregating every tunable (optimizer, robust cost, staircase,
 RBCD driver, agent), loadable from a JSON file, overridable from the CLI
 with dotted keys, and dumped at driver startup so every run is

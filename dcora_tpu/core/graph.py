@@ -486,7 +486,7 @@ class LocalGraph:
 
     def _build_ell(self, c, d, pp_wa, pl_wa, rg_wa,
                    prior_kdiag=None, prior_tdiag=None):
-        """ELL form of the local Q (TPU fast path); None when disabled."""
+        """ELL form of the local Q (gather fast path); None when disabled."""
         import os
 
         if os.environ.get("DCORA_ELL", "1") == "0":

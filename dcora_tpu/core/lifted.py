@@ -6,7 +6,7 @@ Graph.cpp:824-1188):
     X = [ Y_1 .. Y_n | s_1 .. s_l | p_1 .. p_n | L_1 .. L_b ]  in R^{r x k},
     k = d*n + l + n + b
 
-stored as three structured arrays for TPU-friendly gathers:
+stored as three structured arrays for device-friendly gathers:
 
     rot: [n, r, d]    lifted rotation (Stiefel) blocks
     sph: [l, r]       unit-sphere columns

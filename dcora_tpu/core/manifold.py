@@ -11,8 +11,7 @@ Pure batched functions replacing the reference's ROPTLIB containers
                       column renormalization on the oblique factor
 
 The polar retraction uses an eigendecomposition of the d x d Gram matrix
-(d in {2,3}) rather than a tall QR: it is batched, branch-free, and maps to
-tiny MXU/VPU ops on TPU. Rows of X above the active rank that are zero stay
+(d in {2,3}) rather than a tall QR: it is batched and branch-free. Rows of X above the active rank that are zero stay
 zero under all of these maps, which is what lets the Riemannian staircase run
 at a fixed allocation rank with row masking (design delta vs. reference,
 which reinstantiates per rank: MultiRobotExample.cpp:172-217).

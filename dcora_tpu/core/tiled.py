@@ -1,18 +1,15 @@
-"""Block-sparse tiled form of Q and the flat TPU state layout.
+"""Block-sparse tiled form of Q and the flat state layout.
 
-This is the speed-of-light path for the reference's two hottest loops -- the
-tCG Hessian SpMM `V Q` (QuadraticProblem.cpp:61-68) and the Lanczos SpMVs of
-certification (DCORA_utils.cpp:1807-1896).  Rationale (measured on TPU v5e,
-city10000, rank 5):
+This is the dense-tile path for the reference's two hottest loops -- the
+tCG Hessian SpMM `V Q` (QuadraticProblem.cpp:61-68) and the Lanczos SpMVs
+of certification (DCORA_utils.cpp:1807-1896):
 
-  * XLA gathers with ~20-byte rows (the ELL fast path of problem.py) run at
-    ~1/30 of HBM bandwidth: the TPU fetches 512-byte lanes per row.
   * Reordering the pose graph with reverse Cuthill-McKee collapses the
-    scalar matrix Q into a narrow band (bandwidth 182 poses on city10000),
-    so Q partitions into a few hundred dense 128x128 tiles.
-  * The SpMM then becomes `gather 4 KB X-tiles -> batched MXU matmul ->
-    segment-sum 4 KB W-tiles`, all at hardware-friendly granularity:
-    ~130 us sequential vs ~4200 us for the ELL gather path.
+    scalar matrix Q into a narrow band, so Q partitions into a few hundred
+    dense 128x128 tiles on city10000-class graphs.
+  * The SpMM then becomes `gather X tiles -> batched matmul -> segment-sum
+    into W tiles`, moving whole contiguous tiles instead of the ~20-byte
+    per-edge rows that the gather paths of problem.py touch.
 
 Layout contract
 ---------------
@@ -68,18 +65,6 @@ class TiledQ(NamedTuple):
     # lane-permutation maps between RA scalar ordering and flat ordering
     ra_of_fl: jax.Array    # i32[kpad]; k points at an appended zero column
     fl_of_ra: jax.Array    # i32[k]
-    # optional row-grouped upper-triangular wide-tile layout for the Pallas
-    # symmetric SpMM kernel (DCORA_PALLAS=1): ~0.6x the tile bytes, each
-    # tile applied both ways, G tiles per wide-N matmul (pallas_spmm.py).
-    # None unless built with with_pallas=True.
-    grp_rows: Optional[jax.Array] = None    # i32[ngroups]
-    grp_cols: Optional[jax.Array] = None    # i32[ngroups, G]
-    grp_wide: Optional[jax.Array] = None    # f32[ngroups, T, G*T]
-    # bucketed variant: ((grows, gcols, wide), ...) with per-bucket widths
-    # chosen from the tile-count histogram so streamed bytes stay ~1.0x
-    # the stored tiles (fixed G=8 streams ~2x on the RCM band's ~4-5
-    # tiles/row).  Preferred over the fixed-G fields when present.
-    grp_buckets: Optional[tuple] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -355,31 +340,15 @@ def build_tiled(P: prob.ProblemData, dims: ProblemDims, T: int = 128,
                 dtype=np.float32,
                 precond: Optional[prob.Preconditioner] = None,
                 reg: float = 0.1,
-                with_pallas: Optional[bool] = None,
                 tile_precond: bool = False,
                 as_numpy: bool = False) -> TiledProblem:
     """Host-side: RCM order, tile the scalar Q, invert the Jacobi blocks.
 
-    `dtype` selects the tile precision (f32 for the TPU hot path; f64 for
+    `dtype` selects the tile precision (f32 for the coarse phase; f64 for
     exact oracles / the refinement phase).  `precond` reuses an existing
     block-Jacobi factorization; otherwise one is built with regularization
-    `reg` (reference PGO value 0.1, Graph.cpp:1901-1917).  `with_pallas`
-    additionally stores the upper-triangular tile list for the Pallas
-    symmetric-SpMM kernel (defaults to the DCORA_PALLAS env flag).
+    `reg` (reference PGO value 0.1, Graph.cpp:1901-1917).
     """
-    import os
-
-    if with_pallas is None:
-        # default: ON for real TPU backends (the grouped symmetric kernel
-        # measured ~1.5x the XLA tile path on v5e, NOTES.md bench history),
-        # OFF on CPU (no Mosaic); DCORA_PALLAS=0/1 overrides.
-        flag = os.environ.get("DCORA_PALLAS")
-        if flag is not None:
-            with_pallas = flag == "1"
-        else:
-            from dcora_tpu.core.pallas_spmm import pallas_available
-
-            with_pallas = pallas_available() and dtype == np.float32
     # as_numpy keeps every leaf a host numpy array: the fleet builder
     # (parallel.rbcd._build_tiled_batched) pads and stacks per-agent
     # problems on the host and ships ONE [A, ...] transfer per leaf
@@ -443,35 +412,10 @@ def build_tiled(P: prob.ProblemData, dims: ProblemDims, T: int = 128,
     ra_of_fl[fl_of_ra] = np.arange(k)
 
     meta = TiledMeta(d=d, n=n, l=l, b=b, T=T, nt=nt)
-    grp_buckets = None
-    if with_pallas:
-        from dcora_tpu.core.pallas_spmm import (
-            build_row_groups_bucketed,
-            build_row_pairs_bucketed,
-        )
-
-        # two-row K-fused packing halves MXU issues per streamed tile,
-        # and the r_pad=8 microbenchmark shows it far ahead (0.040 ms vs
-        # 0.138 ms bucketed on city10000) — but the number is below the
-        # bytes roofline (anomalous; cf. the round-4 "0.013 ms" XLA
-        # outlier at r_pad=8) and the END-TO-END RTR headline regressed
-        # 7% under paired (3.05M vs 3.27M poses*iters/s), while at
-        # r_pad=16 paired pays its ~1.4x extra streamed bytes
-        # (0.169 ms vs 0.113).  Bucketed stays the default; paired is
-        # selectable for future re-measurement.
-        packer = (build_row_pairs_bucketed
-                  if os.environ.get("DCORA_SPMM_PACK",
-                                    "bucketed") == "paired"
-                  else build_row_groups_bucketed)
-        up = trow <= tcol
-        grp_buckets = tuple(
-            (conv(gr), conv(gc), conv(gw))
-            for gr, gc, gw in packer(trow[up], tcol[up], dense[up], T=T)
-        )
     # Pad the tile list to a multiple of the apply-time chunk so the
     # scan-chunked SpMM can reshape in place: padding inside apply would
     # concatenate-copy the full tile array (3.6 GB at g2o100k/f64) on
-    # EVERY Hessian product and OOM the chip at runtime.  Zero tiles
+    # EVERY Hessian product and exhaust device memory.  Zero tiles
     # accumulate nothing into tile (0, 0).  The BTD/diag preconditioner
     # extraction above uses the unpadded arrays.
     _CH = _tile_chunk()
@@ -489,14 +433,12 @@ def build_tiled(P: prob.ProblemData, dims: ProblemDims, T: int = 128,
         tile_cols=conv(tcol_q),
         ra_of_fl=conv(ra_of_fl.astype(np.int32)),
         fl_of_ra=conv(fl_of_ra.astype(np.int32)),
-        grp_buckets=grp_buckets,
     )
 
     # block-Jacobi preconditioner in flat (RCM) order.  The blocks are the
     # diagonal (dh x dh) pose blocks and sphere/landmark scalars of the very
-    # CSR assembled above, so extract them host-side (numpy) instead of
-    # re-assembling on device (prob.build_preconditioner runs emulated-f64
-    # scatter/cholesky on TPU: ~60 s on city10000 vs ~50 ms here).
+    # COO assembled above, so extract them host-side (numpy) instead of
+    # re-assembling them on device with prob.build_preconditioner.
     if precond is not None:
         perm = np.argsort(pose_rank)  # original pose index at each RCM slot
         pose_inv = conv(
@@ -604,26 +546,10 @@ def _factor_btd(dense, trow, tcol, nt: int, T: int, reg: float, dtype,
 def apply_tiled(TP: TiledProblem, Xf: jax.Array) -> jax.Array:
     """W = Xf Q (symmetric Q):  [r_pad, kpad] -> [r_pad, kpad].
 
-    gather 4 KB X tiles -> batched MXU matmul -> segment-sum into W tiles.
-    When the problem was built with_pallas and runs on a real TPU in f32,
-    dispatch to the symmetric Pallas kernel instead (0.6x tile traffic).
+    gather X tiles -> batched matmul -> segment-sum into W tiles.
     """
     meta = TP.meta
     r_pad = Xf.shape[0]
-    if TP.Q.grp_buckets is not None and Xf.dtype == jnp.float32:
-        from dcora_tpu.core import pallas_spmm
-
-        if pallas_spmm.pallas_available():
-            return pallas_spmm.spmm_bucketed(TP.Q.grp_buckets, Xf,
-                                             T=meta.T)
-    elif TP.Q.grp_wide is not None and Xf.dtype == jnp.float32:
-        from dcora_tpu.core import pallas_spmm
-
-        if pallas_spmm.pallas_available():
-            return pallas_spmm.spmm_grouped(
-                TP.Q.grp_rows, TP.Q.grp_cols, TP.Q.grp_wide, Xf,
-                T=meta.T, G=TP.Q.grp_cols.shape[1],
-            )
     Xt = Xf.reshape(r_pad, meta.nt, meta.T).transpose(1, 0, 2)  # [nt, r, T]
     m = int(TP.Q.tiles.shape[0])
     CH = _tile_chunk()
@@ -637,9 +563,9 @@ def apply_tiled(TP: TiledProblem, Xf: jax.Array) -> jax.Array:
         W = jax.ops.segment_sum(Yg, TP.Q.tile_cols, num_segments=meta.nt)
     else:
         # Chunk the tile axis: one unchunked batched dot at g2o100k scale
-        # (29k tiles) made XLA materialize an [r, m, T, T] temp (14 GB)
-        # and OOM the chip; a scan over fixed-size chunks bounds every
-        # temp at CH tiles while touching the same bytes once.
+        # (29k tiles) lets XLA materialize an [r, m, T, T] temp (14 GB);
+        # a scan over fixed-size chunks bounds every temp at CH tiles
+        # while touching the same bytes once.
         mp = -(-m // CH) * CH
         pad = mp - m
         if pad:
@@ -724,12 +650,11 @@ def _join(meta: TiledMeta, pose, sph, tail) -> jax.Array:
 def _planar_cols(meta: TiledMeta, Xf: jax.Array):
     """The dh per-pose component slices as lane-major [r_pad, n] arrays.
 
-    TPU fusion note: einsum over the [r, n, dh] view lowers to dot_general,
-    which breaks XLA fusion and materializes rank-3 intermediates with the
-    size-dh minor dimension padded to 128 lanes (a 32-64x memory blowup --
-    measured ~600 us/op vs ~4 us for the unrolled form below).  Everything
-    in the tCG hot loop therefore stays on 2-D lane-major slices and
-    unrolled static loops over the tiny d x d indices.
+    An einsum over the [r, n, dh] view lowers to dot_general, which breaks
+    XLA fusion and materializes rank-3 intermediates with a size-dh minor
+    dimension.  Everything in the tCG hot loop therefore stays on 2-D
+    [r_pad, n] slices and unrolled static loops over the tiny d x d
+    indices, which fuse into elementwise kernels.
     """
     P3 = _pose3(meta, Xf).transpose(0, 2, 1)  # [r, dh, n] (copy, fusible)
     return [P3[:, c] for c in range(meta.dh)]
@@ -917,12 +842,10 @@ def retract_flat(meta: TiledMeta, Xf: jax.Array, Vf: jax.Array) -> jax.Array:
 #
 # The flat [r_pad, kpad] layout interleaves pose components (lane i*dh+c),
 # so every per-pose manifold op pays two [r, n, dh] <-> [r, dh, n]
-# relayouts (_planar_cols/_join_cols).  Measured on TPU v5e/city10000 the
-# relayouts dominate: tangent 71 us, precond 119 us, Weingarten 83 us,
-# retract 883 us per call, vs ~219 us for the SpMM itself.  The tCG state
-# is therefore kept *planar* -- a pytree of dh lane-major [r_pad, n]
-# component slices plus the sphere/tail sections -- where every manifold op
-# is straight-line fusible VPU arithmetic, and the interleaved layout is
+# relayouts (_planar_cols/_join_cols).  The tCG state is therefore kept
+# *planar* -- a pytree of dh [r_pad, n] component slices plus the
+# sphere/tail sections -- where every manifold op is straight-line
+# fusible elementwise arithmetic, and the interleaved layout is
 # materialized only at the SpMM boundary (2 relayouts per Hessian product
 # instead of ~8 per inner iteration).
 # --------------------------------------------------------------------------
@@ -1032,8 +955,8 @@ def retract_planar(meta: TiledMeta, Xp: Planar, Vp: Planar) -> Planar:
     per-pose; their inverse square roots are computed with the coupled
     Newton-Schulz iteration  Y <- Y (3I - ZY)/2, Z <- (3I - ZY) Z / 2
     (Y -> B^{1/2}, Z -> B^{-1/2} for B = M/s, s >= lambda_max via the
-    trace bound), entirely as elementwise ops on [n] vectors: measured
-    ~25x faster than the [n, d, d] eigh path of retract_flat on TPU.
+    trace bound), entirely as elementwise ops on [n] vectors instead of
+    the batched [n, d, d] eigh of retract_flat.
     Convergence: lambda_min(M) >= 1 when X is feasible and V tangent
     (M = I + V^T V), so scaled eigenvalues lie in [1/s, 1] and _NS_ITERS
     sweeps contract the slowest mode by 1.5^k -- 36 sweeps cover

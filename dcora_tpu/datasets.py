@@ -1,9 +1,8 @@
 """Synthetic dataset generators (g2o pose graphs and PyFG RA-SLAM).
 
-The reference ships 28 data files but no generator
-(/root/reference/data, SURVEY.md section 2.1 row 18). Bundling those files
-would tie the framework to the read-only reference mount, so instead this
-module *generates* structurally-equivalent datasets on demand:
+The reference ships 28 data files but no generator (SURVEY.md section 2.1
+row 18). This module *generates* structurally-equivalent datasets on
+demand instead, so nothing has to be downloaded:
 
   * grid pose graphs in the style of tinyGrid3D/smallGrid3D (boustrophedon
     trajectory over an axis-aligned grid, odometry plus spatially-adjacent
@@ -27,6 +26,12 @@ from typing import Optional, Tuple
 import numpy as np
 
 from dcora_tpu.utils.rotations import rotation_to_quat
+
+#: generated datasets live in the checkout (gitignored apart from the small
+#: test fixtures), so nothing is read or written outside it
+DATA_CACHE = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    ".data_cache")
 
 
 def _rand_rotation(rng: np.random.Generator, max_angle: float) -> np.ndarray:
@@ -185,10 +190,16 @@ def generate_ra_slam_pyfg(
     trans_noise: float = 0.0,
     range_noise: float = 0.0,
     seed: int = 3,
+    row_length: int = 0,
 ) -> str:
     """Noiseless (by default) multi-robot RA-SLAM set in PyFG format:
     per-robot odometry chains, cross-robot loop closures, pose-landmark
     edges, and pose-pose / pose-landmark range measurements.
+
+    With ``row_length`` 0 each robot drives one straight lane (robots 2 m
+    apart in y); otherwise each robot snakes over rows of ``row_length``
+    unit steps in the xy plane, robots stacked 2 m apart in z, so a long
+    trajectory stays within a compact area (and the landmarks with it).
 
     Symbols follow the reference convention (DCORA_utils.cpp:377-455):
     robots 'A','B',... ; landmarks 'L0','L1',... owned by the map robot.
@@ -200,15 +211,25 @@ def generate_ra_slam_pyfg(
     traj = {}
     rots = {}
     for r in range(num_robots):
-        pts = _boustrophedon((poses_per_robot, 1, 1))
-        pts[:, 1] += 2.0 * r
+        if row_length:
+            rows = -(-poses_per_robot // row_length)
+            pts = _boustrophedon((row_length, rows, 1))[:poses_per_robot]
+            pts[:, 2] += 2.0 * r
+        else:
+            pts = _boustrophedon((poses_per_robot, 1, 1))
+            pts[:, 1] += 2.0 * r
         Rs = [np.eye(3)]
         for _ in range(1, poses_per_robot):
             Rs.append(Rs[-1] @ _rand_rotation(rng, 0.4))
         traj[r] = pts
         rots[r] = np.stack(Rs)
-    lms = rng.uniform(-1, poses_per_robot, size=(num_landmarks, 3))
-    lms[:, 1] = rng.uniform(-1, 2.0 * num_robots, size=num_landmarks)
+    if row_length:
+        hi = np.array([row_length, -(-poses_per_robot // row_length),
+                       2.0 * num_robots])
+        lms = rng.uniform(-1, hi, size=(num_landmarks, 3))
+    else:
+        lms = rng.uniform(-1, poses_per_robot, size=(num_landmarks, 3))
+        lms[:, 1] = rng.uniform(-1, 2.0 * num_robots, size=num_landmarks)
 
     cov_t = 1e-4 if trans_noise == 0 else trans_noise**2
     cov_r = 1e-4 if rot_noise == 0 else rot_noise**2
@@ -409,9 +430,8 @@ def corrupt_with_outliers(measurements, frac: float = 0.15, seed: int = 7):
 
 def ensure_test_datasets(cache_dir: str) -> str:
     """Generate the test-suite dataset files into ``cache_dir`` (if not
-    already present) and return the directory.  Used as the fallback when
-    the reference data mount is unavailable, so `pytest` runs
-    self-contained."""
+    already present) and return the directory, so `pytest` and the entry
+    points run self-contained."""
     os.makedirs(cache_dir, exist_ok=True)
     for name, cfg in _TEST_SETS.items():
         p = os.path.join(cache_dir, name)
@@ -424,6 +444,19 @@ def ensure_test_datasets(cache_dir: str) -> str:
     if not os.path.exists(p):
         generate_ra_slam_pyfg(p)
     return cache_dir
+
+
+def ensure_grid_g2o(shape: Tuple[int, int, int] = (22, 22, 22)) -> str:
+    """Path of a generated 3D grid pose graph (noise 0.05 rad / 0.02 m) in
+    DATA_CACHE, written on first use.  The default is the city10000-class
+    graph of the benchmarks: 10,648 poses and 16,584 edges."""
+    os.makedirs(DATA_CACHE, exist_ok=True)
+    path = os.path.join(DATA_CACHE, "grid_{}x{}x{}.g2o".format(*shape))
+    if not os.path.exists(path):
+        generate_grid_g2o(path + ".part", shape=shape, rot_noise=0.05,
+                          trans_noise=0.02)
+        os.replace(path + ".part", path)
+    return path
 
 
 def generate_large_scale_g2o(path: str, target_poses: int = 100_000,

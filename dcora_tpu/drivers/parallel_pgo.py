@@ -1,19 +1,19 @@
 """Scaling-mode DC2-PGO: synchronous-parallel RBCD over a device mesh.
 
-The TPU-native counterpart of the sequential greedy RBCD driver
+The device-parallel counterpart of the sequential greedy RBCD driver
 (multi_robot_pgo.py / MultiRobotExample.cpp): every agent block updates
 concurrently against its neighbors' previous-round public states, with the
 separator exchange as one all_gather over the mesh axis per round
 (SURVEY.md 2.3). Both schemes converge to first-order critical points of
 the same block-separable lifted cost; this one maps to hardware.
 
-On a single-chip or CPU setup, run with virtual devices:
+On a single-device or CPU setup, run with virtual devices:
 
   XLA_FLAGS=--xla_force_host_platform_device_count=8 \
   python -m dcora_tpu.drivers.parallel_pgo 8 file.g2o --cpu
 
-On a real multi-chip slice the mesh spans the chips and the all_gather
-rides ICI. For multi-host (DCN) runs, every process launches the same
+On a multi-GPU host the mesh spans the cards and XLA hands the all_gather
+to NCCL. For multi-host runs, every process launches the same
 command with --coordinator/--num-processes/--process-id (or the
 JAX_COORDINATOR / JAX_NUM_PROCESSES / JAX_PROCESS_ID env vars):
 jax.distributed.initialize wires the global mesh, the batched problem is
@@ -41,8 +41,8 @@ import dcora_tpu  # noqa: F401
 def init_multihost(coordinator: str, num_processes: int, process_id: int):
     """Initialize the JAX distributed runtime (multi-host over DCN).
 
-    Must run before any jax computation. The same call serves TPU pods
-    and the CPU test harness (gRPC coordination service at
+    Must run before any jax computation. The same call serves multi-GPU
+    hosts and the CPU test harness (gRPC coordination service at
     ``coordinator``)."""
     import jax
 
@@ -108,9 +108,9 @@ def run(num_agents: int, g2o_path: str, r: int = 5, max_rounds: int = 1000,
         states.append(RAState(rot=X.rot[s:e], sph=X.sph[:0],
                               trn=X.trn[s:e]))
 
-    # backend: "tiled" runs each block update on the MXU SpMM path (f32
-    # tiles on TPU, f64 on CPU); "edge" is the exact f64 gather/scatter
-    # path; "auto" picks tiled on TPU, edge elsewhere.
+    # backend: "tiled" runs each block update on the dense-tile SpMM path
+    # (f32 tiles on the GPU, f64 on CPU); "edge" is the exact f64
+    # gather/scatter path; "auto" picks tiled on the GPU, edge on CPU.
     if backend == "auto":
         backend = "tiled" if jax.default_backend() not in ("cpu",) \
             else "edge"
@@ -200,7 +200,8 @@ def main():
                     help="force the CPU backend (virtual devices)")
     ap.add_argument("--backend", default="auto",
                     choices=["auto", "edge", "tiled"],
-                    help="block-update compute path (tiled = MXU SpMM)")
+                    help="block-update compute path (tiled = dense-tile "
+                    "SpMM)")
     ap.add_argument("--verbose", action="store_true")
     ap.add_argument("--coordinator",
                     default=os.environ.get("JAX_COORDINATOR", ""),

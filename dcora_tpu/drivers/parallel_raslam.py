@@ -1,6 +1,6 @@
 """Scaling-mode DCORA: synchronous-parallel RBCD for RA-SLAM over a mesh.
 
-The TPU scaling counterpart of the sequential greedy RA driver
+The device-parallel counterpart of the sequential greedy RA driver
 (multi_robot_raslam.py / MultiRobotExample_RASLAM.cpp:282-453): per-robot
 RA blocks (lifted poses + unit spheres + landmarks) all update concurrently
 against their neighbors' previous-round public states; the three-dict
@@ -88,6 +88,8 @@ def run(pyfg_path: str, r: int = 0, max_rounds: int = 1000,
         X0 = lifted.pad_rank(X0, r)
     states = [_slice_agent_state(X0, ridx[rid]) for rid in active]
 
+    # "auto": dense-tile f32 block updates on the GPU, exact f64 edge path
+    # on CPU (as in parallel_pgo)
     if backend == "auto":
         backend = "tiled" if jax.default_backend() not in ("cpu",) \
             else "edge"

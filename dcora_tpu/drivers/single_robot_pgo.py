@@ -23,26 +23,35 @@ from dcora_tpu.solvers import solve_pgo
 from dcora_tpu.staircase import riemannian_staircase
 from dcora_tpu.types import ROptParameters
 from dcora_tpu.utils.logger import Logger
+from dcora_tpu.utils.timing import PhaseTimer
 
 
 def run(g2o_path: str, certify: bool = False, log_directory: str = "",
         verbose: bool = True, opt_params: ROptParameters = None,
-        r_max: int = 20, eta: float = 1e-3):
-    ds = read_g2o_file(g2o_path)
+        r_max: int = 20, eta: float = 1e-3,
+        timer: PhaseTimer = None):
+    """Solve one g2o file.  Returns (T_out [n, d, d+1], f, res) with res
+    the StaircaseResult when certify=True, else None.  ``timer`` collects
+    the wall time of each stage (parse, init, then the staircase's)."""
+    timer = timer if timer is not None else PhaseTimer()
+    with timer.phase("parse"):
+        ds = read_g2o_file(g2o_path)
     ms = ds.pose_pose_measurements
     d = ds.dim
     t0 = time.time()
     params = opt_params or ROptParameters(
         gradnorm_tol=1e-4, RTR_iterations=200, RTR_tCG_iterations=200
     )
+    res = None
     if certify:
         g = LocalGraph(0, d + 2, d)
         g.set_measurements(ms)
-        T = chordal_initialization(ms)
+        with timer.phase("init"):
+            T = chordal_initialization(ms)
         X0 = lifted.pad_rank(lifted.from_pose_array(T), d + 2)
         res = riemannian_staircase(
             g, X0, r_min=d + 2, r_max=min(r_max, 20), opt_params=params,
-            min_eig_num_tol=eta,
+            min_eig_num_tol=eta, timer=timer,
         )
         T_out = np.zeros((g.n, d, d + 1))
         T_out[:, :, :d] = np.asarray(res.rounded.rot)
@@ -66,7 +75,7 @@ def run(g2o_path: str, certify: bool = False, log_directory: str = "",
         Logger(log_directory).log_trajectory(
             d, len(T_out), T_out, "dcora_A.txt"
         )
-    return T_out, f
+    return T_out, f, res
 
 
 def main():

@@ -30,6 +30,7 @@ from dcora_tpu.io.remap import (
 from dcora_tpu.measurements import RelativePosePoseMeasurement
 from dcora_tpu.staircase import riemannian_staircase
 from dcora_tpu.types import MAP_ID, GraphType, PoseID, ROptParameters
+from dcora_tpu.utils.timing import PhaseTimer
 
 logger = logging.getLogger(__name__)
 
@@ -86,23 +87,29 @@ def odometry_init_global(ds, global_meas) -> RAState:
 
 def run(pyfg_path: str, r_max: int = 20, min_eig_tol: float = 1e-4,
         init: str = "odometry", verbose: bool = True,
-        checkpoint_path: str = None):
-    ds = read_pyfg_file(pyfg_path)
-    gm = get_global_measurements(ds)
+        checkpoint_path: str = None, timer: PhaseTimer = None):
+    """Returns (StaircaseResult, LocalGraph, global measurements);
+    ``timer`` collects the wall time of each stage (parse, init, then the
+    staircase's)."""
+    timer = timer if timer is not None else PhaseTimer()
+    with timer.phase("parse"):
+        ds = read_pyfg_file(pyfg_path)
+        gm = get_global_measurements(ds)
     d = ds.dim
     gt = gm.ground_truth_init
 
     g = LocalGraph(0, d, d, GraphType.RangeAidedSLAMGraph)
     g.set_measurements(gm.relative_measurements)
 
-    if init == "odometry":
-        X0 = odometry_init_global(ds, gm)
-    elif init == "ground_truth":
-        X0 = gt
-    else:
-        import jax.random as jr
+    with timer.phase("init"):
+        if init == "odometry":
+            X0 = odometry_init_global(ds, gm)
+        elif init == "ground_truth":
+            X0 = gt
+        else:
+            import jax.random as jr
 
-        X0 = manifold.random_state(jr.PRNGKey(0), g.dims, d)
+            X0 = manifold.random_state(jr.PRNGKey(0), g.dims, d)
 
     t0 = time.time()
     res = riemannian_staircase(
@@ -111,7 +118,7 @@ def run(pyfg_path: str, r_max: int = 20, min_eig_tol: float = 1e-4,
             gradnorm_tol=1e-4, RTR_iterations=200, RTR_tCG_iterations=200
         ),
         min_eig_num_tol=min_eig_tol, verbose=verbose,
-        checkpoint_path=checkpoint_path,
+        checkpoint_path=checkpoint_path, timer=timer,
     )
     P = g.problem_data()
     f_rounded = float(prob.cost(P, res.rounded))

@@ -3,8 +3,9 @@
 The native library covers the host-side data path — dataset loaders and
 block-Jacobi preconditioner assembly — mirroring the parts the reference
 implements in C++ (parsers: DCORA_utils.cpp:179-1167; graph assembly:
-Graph.cpp:1888-1960).  Everything degrades gracefully: if the library is
-missing and cannot be built (no compiler), callers fall back to the pure
+Graph.cpp:1888-1960).  The library is built from native/src into
+native/build (not tracked) at first use.  Everything degrades gracefully:
+if it cannot be built (no compiler), callers fall back to the pure
 Python/numpy implementations.
 
 Set ``DCORA_NATIVE=0`` to disable the native path entirely.
@@ -13,6 +14,7 @@ Set ``DCORA_NATIVE=0`` to disable the native path entirely.
 from __future__ import annotations
 
 import ctypes as ct
+import fcntl
 import os
 import subprocess
 from typing import Optional
@@ -31,15 +33,25 @@ _f64p = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
 
 
 def _build_library() -> bool:
+    """Build the library unless present; True when it exists afterwards.
+
+    Runs under an exclusive lock on native/build/.lock, so processes that
+    start together (test workers) neither race on the outputs nor load a
+    half-linked file."""
+    build_dir = os.path.dirname(_LIB_PATH)
     try:
-        subprocess.run(
-            ["make", "-s", "-C", _NATIVE_DIR],
-            check=True,
-            capture_output=True,
-            timeout=120,
-        )
-        return os.path.exists(_LIB_PATH)
-    except Exception:
+        os.makedirs(build_dir, exist_ok=True)
+        with open(os.path.join(build_dir, ".lock"), "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            if not os.path.exists(_LIB_PATH):
+                subprocess.run(
+                    ["make", "-s", "-C", _NATIVE_DIR],
+                    check=True,
+                    capture_output=True,
+                    timeout=120,
+                )
+            return os.path.exists(_LIB_PATH)
+    except (OSError, subprocess.SubprocessError):
         return False
 
 
@@ -118,7 +130,7 @@ def get_library():
     _tried = True
     if os.environ.get("DCORA_NATIVE", "1") == "0":
         return None
-    if not os.path.exists(_LIB_PATH) and not _build_library():
+    if not _build_library():
         return None
     try:
         lib = ct.CDLL(_LIB_PATH)

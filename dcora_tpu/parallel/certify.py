@@ -8,7 +8,7 @@ across chips/hosts the dominant cost is the S matvec; here it becomes
 
 where Q_a holds an edge shard: the measurement SoA axis is split across
 the mesh, every device computes the gather/scatter contributions of its
-edges into a full-size output, and one psum over ICI reduces them
+edges into a full-size output, and one psum over the mesh reduces them
 (SURVEY.md 2.3 "distributed certification": local SpMV + psum). The
 Lambda(X) term is block-diagonal and cheap, applied replicated.
 

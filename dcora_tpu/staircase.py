@@ -31,6 +31,7 @@ from dcora_tpu.core.graph import LocalGraph
 from dcora_tpu.core.lifted import RAState
 from dcora_tpu.core.rtr import RTRConfig, rtr
 from dcora_tpu.types import ROptParameters
+from dcora_tpu.utils.timing import PhaseTimer
 
 logger = logging.getLogger(__name__)
 
@@ -65,18 +66,22 @@ def riemannian_staircase(
     refine: bool = True,
     verbose: bool = False,
     checkpoint_path: Optional[str] = None,
+    timer: Optional[PhaseTimer] = None,
 ) -> StaircaseResult:
     """Run the staircase; when ``checkpoint_path`` is given, the iterate and
     rank are persisted after every completed rank and a preempted run resumes
     from the saved rank instead of r_min (a capability the reference lacks;
     its only warm start is the in-memory ``Xcurr.topRows(r+1)`` carry,
-    MultiRobotExample.cpp:360)."""
+    MultiRobotExample.cpp:360).  ``timer`` accumulates wall time per stage
+    (optimize, certify, escape, round, refine), each ending on completed
+    device work."""
     import os
 
     from dcora_tpu.solvers import make_preconditioner
     from dcora_tpu.utils.checkpoint import load_checkpoint, save_checkpoint
 
     t_start = time.time()
+    timer = timer if timer is not None else PhaseTimer()
     opt_params = opt_params or ROptParameters(
         gradnorm_tol=1e-4, RTR_iterations=200, RTR_tCG_iterations=200
     )
@@ -120,13 +125,17 @@ def riemannian_staircase(
 
         def solve_at_rank(X_in, skip_coarse=False):
             nonlocal TP
-            if g.n >= FAST_PATH_MIN_POSES:
-                res_, TP = rtr_fast(g, P, M, X_in, cfg, G=G_at_rank(r),
-                                    TP=TP, skip_coarse=skip_coarse)
-                return res_
-            G = G_at_rank(r)
-            return rtr(P, G if G is not None else lifted.zeros(dims, r),
-                       M, X_in, cfg)
+            with timer.phase("optimize"):
+                if g.n >= FAST_PATH_MIN_POSES:
+                    res_, TP = rtr_fast(g, P, M, X_in, cfg,
+                                        G=G_at_rank(r), TP=TP,
+                                        skip_coarse=skip_coarse)
+                else:
+                    G = G_at_rank(r)
+                    res_ = rtr(P, G if G is not None
+                               else lifted.zeros(dims, r), M, X_in, cfg)
+                float(res_.gradnorm_final)  # wait for the device
+            return res_
 
         res = solve_at_rank(X)
         X = res.X
@@ -195,10 +204,11 @@ def riemannian_staircase(
             save_checkpoint(checkpoint_path, X, r)
 
         t_cert = time.time()
-        is_psd, theta, v = fast_verification(
-            P, X, min_eig_num_tol, num_lanczos,
-            TP=(TP.f32 if TP is not None else None),
-        )
+        with timer.phase("certify"):
+            is_psd, theta, v = fast_verification(
+                P, X, min_eig_num_tol, num_lanczos,
+                TP=(TP.f32 if TP is not None else None),
+            )
         if verbose:
             logger.info("rank %d: certification %.1fs (psd=%s)", r,
                         time.time() - t_cert, is_psd)
@@ -211,14 +221,15 @@ def riemannian_staircase(
         if r >= r_max:
             logger.warning("rank cap r_max=%d reached uncertified", r_max)
             break
-        ok, X_next = escape_saddle(
-            P, X, theta, v, r + 1,
-            gradient_tolerance=gradient_tolerance,
-            preconditioned_gradient_tolerance=(
-                preconditioned_gradient_tolerance
-            ),
-            M=M, is_second_order=True,
-        )
+        with timer.phase("escape"):
+            ok, X_next = escape_saddle(
+                P, X, theta, v, r + 1,
+                gradient_tolerance=gradient_tolerance,
+                preconditioned_gradient_tolerance=(
+                    preconditioned_gradient_tolerance
+                ),
+                M=M, is_second_order=True,
+            )
         if not ok:
             logger.warning("saddle escape failed at rank %d", r)
             break
@@ -227,11 +238,11 @@ def riemannian_staircase(
         if checkpoint_path:
             save_checkpoint(checkpoint_path, X, r)
 
-    t_round = time.time()
-    rounded = round_solution(X)
+    with timer.phase("round"):
+        rounded = round_solution(X)
+        float(rounded.rot[0, 0, 0])  # wait for the device
     if verbose:
-        logger.info("rounding %.1fs", time.time() - t_round)
-    t_refine = time.time()
+        logger.info("rounding %.1fs", timer.ms["round"] / 1e3)
     if refine:
         cfg = RTRConfig(
             gradnorm_tol=opt_params.gradnorm_tol,
@@ -241,19 +252,20 @@ def riemannian_staircase(
         )
         from dcora_tpu.solvers import FAST_PATH_MIN_POSES, rtr_fast
 
-        if g.n >= FAST_PATH_MIN_POSES:
-            res_r, TP = rtr_fast(g, P, M, rounded, cfg,
-                                 G=G_at_rank(dims.d), TP=TP)
-            rounded = res_r.X
-        else:
-            G = G_at_rank(dims.d)
-            rounded = rtr(
-                P, G if G is not None else lifted.zeros(dims, dims.d),
-                M, rounded, cfg
-            ).X
-
-    if refine and verbose:
-        logger.info("rank-d refine %.1fs", time.time() - t_refine)
+        with timer.phase("refine"):
+            if g.n >= FAST_PATH_MIN_POSES:
+                res_r, TP = rtr_fast(g, P, M, rounded, cfg,
+                                     G=G_at_rank(dims.d), TP=TP)
+                rounded = res_r.X
+            else:
+                G = G_at_rank(dims.d)
+                rounded = rtr(
+                    P, G if G is not None else lifted.zeros(dims, dims.d),
+                    M, rounded, cfg
+                ).X
+            float(rounded.rot[0, 0, 0])  # wait for the device
+        if verbose:
+            logger.info("rank-d refine %.1fs", timer.ms["refine"] / 1e3)
     f_final = float(prob.cost(P, X))
     gn_final = float(res.gradnorm_final)
     return StaircaseResult(

@@ -9,6 +9,7 @@ completed device work rather than dispatch.
 
 from __future__ import annotations
 
+import subprocess
 import time
 from collections import defaultdict
 from contextlib import contextmanager
@@ -70,3 +71,40 @@ class PhaseTimer:
             for name in sorted(self.ms)
         ]
         return "\n".join(lines)
+
+
+def device_loop_seconds(fn, X, reps: int = 50) -> float:
+    """Seconds per call of ``fn`` on device, timed inside one jitted
+    fori_loop so that host dispatch is not counted.  ``fn`` maps X (an
+    array or pytree) to a value of the same structure, shapes and dtypes;
+    the loop feeds each output back in scaled by 0.999, which keeps the
+    data dependency between calls (the values may overflow; the work per
+    call does not change).  The cost of a 2-trip loop is subtracted, and
+    the first call compiles."""
+    import jax
+
+    def body(i, Y):
+        return jax.tree.map(lambda a: a * 0.999, fn(Y))
+
+    @jax.jit
+    def loop(X, n):
+        return jax.lax.fori_loop(0, n, body, X)
+
+    jax.block_until_ready(loop(X, 2))
+    t0 = time.perf_counter()
+    jax.block_until_ready(loop(X, 2))
+    base = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    jax.block_until_ready(loop(X, reps + 2))
+    return (time.perf_counter() - t0 - base) / reps
+
+
+def gpu_name_and_power_limit() -> str:
+    """What `nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`
+    prints: one "name, limit" line per card.  Raises when nvidia-smi is
+    missing or fails, so no number is reported without its card."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip()

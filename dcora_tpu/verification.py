@@ -1,6 +1,6 @@
 """Independent solution verification via scipy (no JAX, no engine reuse).
 
-Parity evidence for the TPU build: the reference binaries cannot be built
+Parity evidence for this build: the reference binaries cannot be built
 in this environment (their cmake fetches ROPTLIB/Spectra/gtest from GitHub
 at configure time — cmake/roptlib.cmake:6, cmake/spectra.cmake:5,
 cmake/gtest.cmake:7 — and the system lacks Eigen/SuiteSparse/Boost/glog;

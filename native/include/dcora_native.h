@@ -2,7 +2,7 @@
  *
  * Native (C++) counterparts of the host-side data path: dataset loaders
  * (g2o / PyFG) and the block-Jacobi preconditioner assembly.  The compute
- * path (cost, gradients, solvers) is JAX/XLA on TPU; this library covers
+ * path (cost, gradients, solvers) is JAX/XLA on the device; this library covers
  * the parts the reference implements natively in C++ (its parsers in
  * DCORA_utils.cpp:179-1167 and graph assembly in Graph.cpp) where Python
  * object manipulation would otherwise dominate host time.

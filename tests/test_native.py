@@ -19,28 +19,17 @@ from dcora_tpu.measurements import (
     RelativePosePoseMeasurement,
 )
 
-DATA = os.environ.get("DCORA_DATA_DIR", "/root/reference/data")
-
 
 def _dp(name):
-    """Dataset path; generated-cache fallback, else skip."""
-    path = os.path.join(DATA, name)
-    if os.path.exists(path):
-        return path
-    cache = os.path.join(os.path.dirname(__file__), os.pardir,
-                         ".data_cache")
-    cached = os.path.join(cache, name)
-    if os.path.exists(cached):
-        return cached
+    """Path of a generated dataset; skip when it has no generator."""
     from dcora_tpu import datasets
 
-    if name in datasets._TEST_SETS or name in (
-        "pose_graph_optimization_test_3d.g2o",
-        "range_aided_slam_test_3d.pyfg",
-    ):
-        datasets.ensure_test_datasets(os.path.abspath(cache))
-        return cached
-    pytest.skip(f"dataset {name} unavailable")
+    datasets.ensure_test_datasets(datasets.DATA_CACHE)
+    path = os.path.join(datasets.DATA_CACHE, name)
+    if not os.path.exists(path):
+        pytest.skip(f"dataset {name} unavailable")
+    return path
+
 
 pytestmark = pytest.mark.skipif(
     not native.available(), reason="native library unavailable"

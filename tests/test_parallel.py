@@ -275,7 +275,7 @@ def test_parallel_raslam_driver_smoke(data_dir):
 
 
 def test_parallel_rbcd_tiled_backend(parallel_setup):
-    """backend="tiled" (MXU SpMM block updates): decreases cost like the
+    """backend="tiled" (dense-tile SpMM block updates): decreases cost like the
     edge path and does not move a critical point (f64 tiles => exact)."""
     ds, graphs, states, central, X0 = parallel_setup
     r = 5

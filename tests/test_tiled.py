@@ -29,8 +29,9 @@ from dcora_tpu.measurements import (
 from dcora_tpu.types import ProblemDims, StateType
 
 
-def _random_ra_graph(rng, n=7, l=4, b=3, d=3):  # noqa: E741
-    """A local graph with all measurement types, weights, and a prior."""
+def _random_measurements(rng, n, l, b, d):  # noqa: E741
+    """Random weighted measurements of every type present (l ranges,
+    b landmarks), all local to robot 0."""
     ms = []
     for i in range(n - 1):
         R = np.asarray(
@@ -53,6 +54,12 @@ def _random_ra_graph(rng, n=7, l=4, b=3, d=3):  # noqa: E741
             0, i, 0, j, StateType.Pose, st2, q,
             float(rng.uniform(0.5, 3.0)),
             precision=rng.uniform(1, 5), weight=rng.uniform(0.3, 1.0)))
+    return ms
+
+
+def _random_ra_graph(rng, n=7, l=4, b=3, d=3):  # noqa: E741
+    """A local graph with all measurement types, weights, and a prior."""
+    ms = _random_measurements(rng, n, l, b, d)
     g = LocalGraph(0, d, d)
     g.set_measurements(ms)
     P0 = np.zeros((d, d + 1))
@@ -85,84 +92,6 @@ def test_apply_tiled_matches_edge_path_ra(T):
     f_ref = float(prob.cost(P, X))
     f_fl = float(tiled.cost_flat(TP, Xf))
     np.testing.assert_allclose(f_fl, f_ref, rtol=1e-12)
-
-
-@pytest.mark.parametrize("G", [2, 8])
-def test_spmm_grouped_kernel_matches_xla_path(G):
-    """Row-grouped symmetric Pallas kernel (interpret mode) == XLA tiles.
-
-    Covers the wide-N grouping, per-row zero padding, and the diagonal-
-    tile single-application mask on a graph with every measurement type.
-    """
-    from dcora_tpu.core import pallas_spmm
-
-    rng = np.random.default_rng(3)
-    g = _random_ra_graph(rng, n=9, l=5, b=4)
-    P = g.problem_data()
-    TP = tiled.build_tiled(P, g.dims, T=128, dtype=np.float32)
-    trow = np.asarray(TP.Q.tile_rows)
-    tcol = np.asarray(TP.Q.tile_cols)
-    dense = np.asarray(TP.Q.tiles)
-    up = trow <= tcol
-    gr, gc, gw = pallas_spmm.build_row_groups(trow[up], tcol[up],
-                                              dense[up], T=128, G=G)
-    Xf = jnp.asarray(rng.standard_normal((8, TP.meta.kpad))
-                     .astype(np.float32))
-    ref = tiled.apply_tiled(TP, Xf)
-    out = pallas_spmm.spmm_grouped(jnp.asarray(gr), jnp.asarray(gc),
-                                   jnp.asarray(gw), Xf, T=128, G=G,
-                                   interpret=True)
-    scale = float(jnp.max(jnp.abs(ref))) + 1e-30
-    np.testing.assert_allclose(np.asarray(out) / scale,
-                               np.asarray(ref) / scale, atol=2e-6)
-
-
-def test_spmm_bucketed_matches_xla_path():
-    """Bucketed multi-width grouping (interpret mode) == XLA tiles, and
-    the layout streams exactly the stored upper-triangular tiles plus
-    only the in-row remainder padding the chosen widths imply."""
-    from dcora_tpu.core import pallas_spmm
-
-    rng = np.random.default_rng(5)
-    g = _random_ra_graph(rng, n=9, l=5, b=4)
-    P = g.problem_data()
-    TP = tiled.build_tiled(P, g.dims, T=128, dtype=np.float32)
-    trow = np.asarray(TP.Q.tile_rows)
-    tcol = np.asarray(TP.Q.tile_cols)
-    dense = np.asarray(TP.Q.tiles)
-    up = trow <= tcol
-    buckets = pallas_spmm.build_row_groups_bucketed(
-        trow[up], tcol[up], dense[up], T=128)
-    # every stored tile norm is preserved exactly once across buckets
-    tot = sum(float(np.abs(gw).sum()) for _, _, gw in buckets)
-    np.testing.assert_allclose(tot, float(np.abs(dense[up]).sum()),
-                               rtol=1e-6)
-    Xf = jnp.asarray(rng.standard_normal((8, TP.meta.kpad))
-                     .astype(np.float32))
-    ref = tiled.apply_tiled(TP, Xf)
-    buckets_j = [(jnp.asarray(a), jnp.asarray(b), jnp.asarray(c))
-                 for a, b, c in buckets]
-    out = pallas_spmm.spmm_bucketed(buckets_j, Xf, T=128, interpret=True)
-    scale = float(jnp.max(jnp.abs(ref))) + 1e-30
-    np.testing.assert_allclose(np.asarray(out) / scale,
-                               np.asarray(ref) / scale, atol=2e-6)
-
-
-def test_choose_bucket_widths_exactness():
-    """Width selection covers every row count; a uniform histogram picks
-    its own width (zero padding)."""
-    from dcora_tpu.core import pallas_spmm
-
-    w = pallas_spmm.choose_bucket_widths([4] * 100)
-    assert 4 in w
-    # mixed histogram: every row count must be coverable by the DP
-    counts = [1, 2, 3, 4, 5, 6, 9, 17]
-    widths = pallas_spmm.choose_bucket_widths(counts)
-    cost, first = pallas_spmm._row_partition_widths(
-        {t: 1 for t in counts}, widths, 0.75)
-    for t in counts:
-        assert cost[t] < float("inf")
-        assert first[t] in widths
 
 
 def test_planar_ops_match_flat_ops():
@@ -309,7 +238,7 @@ def test_rtr_flat_matches_rastate_rtr_tinygrid(data_dir):
 
 
 def test_rtr_flat_f32_coarse_phase(data_dir):
-    """f32 tiles drive the cost near the optimum (TPU hot-path configuration),
+    """f32 tiles drive the cost near the optimum (coarse-phase setting),
     then an f64 edge-path refine finishes to reference tolerance."""
     ds = read_g2o_file(f"{data_dir}/tinyGrid3D.g2o")
     r, d = 5, ds.dim
@@ -385,7 +314,7 @@ def test_apply_tiled_chunked_matches_unchunked(data_dir, monkeypatch):
     g = LocalGraph(0, 5, ds.dim)
     g.set_measurements(ds.pose_pose_measurements)
     TP = tiled.build_tiled(g.problem_data(), g.dims, T=32,
-                           dtype=np.float64, with_pallas=False)
+                           dtype=np.float64)
     rng = np.random.default_rng(0)
     Xf = jnp.asarray(rng.standard_normal((8, TP.meta.kpad)))
     ref = tiled.apply_tiled(TP, Xf)
@@ -395,34 +324,45 @@ def test_apply_tiled_chunked_matches_unchunked(data_dir, monkeypatch):
                                rtol=1e-12, atol=1e-9)
 
 
-def test_spmm_paired_matches_xla_path():
-    """Two-row K-fused packing (interpret mode) == XLA tiles, preserving
-    every stored tile exactly once (diagonal (r2, r2) tiles routed to the
-    single-row leftover bucket; pad slots zero)."""
-    from dcora_tpu.core import pallas_spmm
+@pytest.mark.parametrize("chunked", [False, True])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("kind", ["pgo", "ra"])
+@pytest.mark.parametrize("d", [2, 3])
+def test_apply_tiled_matches_scipy_Q(d, kind, dtype, chunked, monkeypatch):
+    """W = X Q of the tiles against verification.sparse_Q_ra, the scipy
+    incidence-matrix Q that shares no code with the engine.  Tolerances
+    are relative Frobenius errors: f32 tiles keep ~7 digits, f64 ~16.
+    chunked=True forces the scan over tile chunks (m > _tile_chunk())."""
+    from dcora_tpu import verification
 
-    rng = np.random.default_rng(7)
-    g = _random_ra_graph(rng, n=30, l=8, b=4)
-    P = g.problem_data()
-    TP = tiled.build_tiled(P, g.dims, T=32, dtype=np.float32)
-    trow = np.asarray(TP.Q.tile_rows)
-    tcol = np.asarray(TP.Q.tile_cols)
-    dense = np.asarray(TP.Q.tiles)
-    up = trow <= tcol
-    buckets = pallas_spmm.build_row_pairs_bucketed(
-        trow[up], tcol[up], dense[up], T=32)
-    # tile mass preserved exactly once across paired + leftover buckets
-    tot = sum(float(np.abs(gw).sum()) for _, _, gw in buckets)
-    np.testing.assert_allclose(tot, float(np.abs(dense[up]).sum()),
-                               rtol=1e-6)
-    assert any(gw.shape[1] == 64 for _, _, gw in buckets), \
-        "no two-row fused bucket produced"
-    Xf = jnp.asarray(rng.standard_normal((8, TP.meta.kpad))
-                     .astype(np.float32))
-    ref = tiled.apply_tiled(TP, Xf)
-    buckets_j = [(jnp.asarray(a), jnp.asarray(b), jnp.asarray(c))
-                 for a, b, c in buckets]
-    out = pallas_spmm.spmm_bucketed(buckets_j, Xf, T=32, interpret=True)
-    scale = float(jnp.max(jnp.abs(ref))) + 1e-30
-    np.testing.assert_allclose(np.asarray(out) / scale,
-                               np.asarray(ref) / scale, atol=2e-6)
+    if chunked:
+        monkeypatch.setenv("DCORA_TILE_CHUNK", "4")
+    n, l, b = (30, 0, 0) if kind == "pgo" else (30, 6, 4)  # noqa: E741
+    ms = _random_measurements(np.random.default_rng(d), n, l, b, d)
+    g = LocalGraph(0, d, d)
+    g.set_measurements(ms)
+    TP = tiled.build_tiled(g.problem_data(), g.dims, T=16, dtype=dtype)
+    m = int(TP.Q.tiles.shape[0])
+    assert (m > tiled._tile_chunk()) == chunked
+    pp, pl, rg = verification.split_measurements(ms)
+    Q = verification.sparse_Q_ra(pp, pl, rg, n, l, b, d)
+    X = np.random.default_rng(7).standard_normal((8, Q.shape[0]))
+    X = X.astype(dtype)
+    ref = (Q @ X.astype(np.float64).T).T
+    Xf = jnp.concatenate([jnp.asarray(X), jnp.zeros((8, 1), dtype)],
+                         axis=1)[:, TP.Q.ra_of_fl]
+    W = np.asarray(tiled.apply_tiled(TP, Xf))[:, np.asarray(TP.Q.fl_of_ra)]
+    assert W.dtype == dtype
+    err = np.linalg.norm(W - ref) / np.linalg.norm(ref)
+    assert err < (1e-5 if dtype == np.float32 else 1e-12), err
+
+
+def test_build_tiled_has_no_kernel_layouts():
+    """One Q representation per precision: the tile list and the two
+    ordering maps, with no kernel-specific packing or switch."""
+    import inspect
+
+    assert tiled.TiledQ._fields == (
+        "tiles", "tile_rows", "tile_cols", "ra_of_fl", "fl_of_ra")
+    assert "with_pallas" not in inspect.signature(
+        tiled.build_tiled).parameters

@@ -32,7 +32,7 @@ import time
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), os.pardir))
 
 ART = os.path.join(os.path.dirname(__file__), os.pardir, "artifacts")
-CACHE = os.path.join(os.path.expanduser("~"), ".cache", "dcora_tpu")
+CACHE = os.path.join(os.path.dirname(__file__), os.pardir, ".data_cache")
 
 
 def main():
@@ -42,8 +42,7 @@ def main():
     ap.add_argument("--rmax", type=int, default=8)
     ap.add_argument("--tcg", type=int, default=50,
                     help="tCG budget per outer (the reference's RBCD "
-                    "default, ROptParameters DCORA_types.h:166-168; kept "
-                    "modest so one device call stays watchdog-safe)")
+                    "default, ROptParameters DCORA_types.h:166-168)")
     ap.add_argument("--eta", type=float, default=1e-3)
     args = ap.parse_args()
 
@@ -99,7 +98,7 @@ def main():
     X0 = lifted.pad_rank(lifted.from_pose_array(T0), args.rmin)
     t0 = time.time()
     # the multi-hour staircase survives preemption: resume = re-run
-    ckpt = os.path.join("/tmp", "dcora_ckpt_g2o100k.npz")
+    ckpt = os.path.join(CACHE, "ckpt_g2o100k.npz")
     res = riemannian_staircase(
         g, X0, r_min=args.rmin, r_max=args.rmax,
         opt_params=ROptParameters(

@@ -14,7 +14,10 @@ the dataset ground truth (where the file embeds one).
 
 Usage:
   python tools/parity.py --platform cpu --configs tinyGrid3D smallGrid3D
-  python tools/parity.py --platform tpu --configs sphere2500
+  python tools/parity.py --platform gpu --configs smallGrid3D
+
+Configs read their files from --data-dir (default: the generated datasets
+in .data_cache/); files with no generator must be supplied there.
 
 Writes artifacts/parity/<name>.json; `--summary` regenerates the table in
 BASELINE_CAPTURED.md from all recorded artifacts.
@@ -176,7 +179,8 @@ def run_ra(path, cfg):
     t0 = time.time()
     # long staircases (tiers: 9769 vertices) survive preemption through
     # the staircase checkpoint; resume = re-run the same command
-    ckpt = os.path.join("/tmp", f"dcora_ckpt_{os.path.basename(path)}.npz")
+    ckpt = os.path.join(STATE_DIR, f"ckpt_{os.path.basename(path)}.npz")
+    os.makedirs(STATE_DIR, exist_ok=True)
     res, g, gm = run_cora(path, r_max=cfg["r_max"],
                           min_eig_tol=cfg["eta"], verbose=True,
                           checkpoint_path=ckpt)
@@ -448,9 +452,9 @@ def summarize():
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--configs", nargs="*", default=[])
-    ap.add_argument("--platform", default="cpu", choices=["cpu", "tpu"])
-    ap.add_argument("--data-dir", default=os.environ.get(
-        "DCORA_DATA_DIR", "/root/reference/data"))
+    ap.add_argument("--platform", default="cpu", choices=["cpu", "gpu"])
+    ap.add_argument("--data-dir", default=os.path.join(
+        os.path.dirname(__file__), os.pardir, ".data_cache"))
     ap.add_argument("--summary", action="store_true")
     ap.add_argument("--reverify", action="store_true",
                     help="re-run ONLY the independent verification of the "

@@ -58,13 +58,13 @@ def classification(measurements, outlier_keys, w_tol=0.5):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--dataset", default="sphere2500.g2o")
-    ap.add_argument("--data-dir", default=os.environ.get(
-        "DCORA_DATA_DIR", "/root/reference/data"))
+    ap.add_argument("--data-dir", default=os.path.join(
+        os.path.dirname(__file__), os.pardir, ".data_cache"))
     ap.add_argument("--frac", type=float, default=0.15)
     ap.add_argument("--seed", type=int, default=7)
     ap.add_argument("--robots", type=int, default=5)
     ap.add_argument("--skip-distributed", action="store_true")
-    ap.add_argument("--platform", default="cpu", choices=["cpu", "tpu"])
+    ap.add_argument("--platform", default="cpu", choices=["cpu", "gpu"])
     args = ap.parse_args()
 
     import logging
@@ -130,10 +130,10 @@ def main():
     if not args.skip_distributed:
         from dcora_tpu.drivers.multi_robot_pgo import run as run_mr
 
-        cache = os.path.join(os.path.expanduser("~"), ".cache",
-                             "dcora_tpu")
-        os.makedirs(cache, exist_ok=True)
-        cpath = os.path.join(cache, f"{name}_corrupted.g2o")
+        from dcora_tpu.datasets import DATA_CACHE
+
+        os.makedirs(DATA_CACHE, exist_ok=True)
+        cpath = os.path.join(DATA_CACHE, f"{name}_corrupted.g2o")
         write_g2o(cpath, corrupted, ds.dim)
         t0 = time.time()
         # mu schedule: adaptive init from the team max residual (driver

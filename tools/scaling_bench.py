@@ -5,9 +5,9 @@ a sweep of agent/device counts, and reports strong-scaling efficiency
 (BASELINE.json north star: >=70% at N>=2 hosts on a g2o100k-class
 problem).  The same harness serves three setups:
 
-  * real TPU slice: mesh spans the chips, all_gather rides ICI
-  * multi-host pod: launch one process per host with
-    --coordinator/--num-processes/--process-id (jax.distributed), DCN path
+  * multi-GPU host: the mesh spans the cards, all_gather through NCCL
+  * multi-host: launch one process per host with
+    --coordinator/--num-processes/--process-id (jax.distributed)
   * CPU virtual mesh (--cpu + XLA_FLAGS=--xla_force_host_platform_
     device_count=N): validates the sweep mechanically; its *timing* is not
     a scaling signal (virtual devices share the host cores), which the
@@ -133,10 +133,10 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--dataset", default="city10000.g2o",
                     help="file in --data-dir, or 'g2o100k' (synthetic)")
-    ap.add_argument("--data-dir", default=os.environ.get(
-        "DCORA_DATA_DIR", "/root/reference/data"))
+    ap.add_argument("--data-dir", default=os.path.join(
+        os.path.dirname(__file__), os.pardir, ".data_cache"))
     ap.add_argument("--cache-dir", default=os.path.join(
-        os.path.expanduser("~"), ".cache", "dcora_tpu"))
+        os.path.dirname(__file__), os.pardir, ".data_cache"))
     ap.add_argument("--agents", type=int, nargs="+", default=[1, 2, 4, 8])
     ap.add_argument("--rank", type=int, default=5)
     ap.add_argument("--rounds", type=int, default=20)
